@@ -1,4 +1,4 @@
-"""raytrace3_tpu — TPU-native differentiable SPPM renderer.
+"""raytrace3_tpu — differentiable SPPM renderer in JAX.
 
 A from-scratch JAX/Pallas re-design of the capabilities of
 wondergo2017/raytrace3 (a C++/OpenMP stochastic progressive photon mapping

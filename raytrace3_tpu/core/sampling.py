@@ -1,6 +1,6 @@
 """Random sampling primitives, key-threaded through ``jax.random``.
 
-TPU-native replacement for the reference's global OpenCV RNG (reference:
+Batched replacement for the reference's global OpenCV RNG (reference:
 ``raytracer/Vec3.h:5,15-27``) — which is shared mutable state across OpenMP
 threads (a real data race, see SURVEY.md quirk #5).  Here every sampler takes
 an explicit PRNG key and is closed-form (no rejection loops), so it vmaps and

@@ -2,21 +2,21 @@
 
 The reference keeps scalar C++ objects (``Ray``/``Material``/``Collision`` at
 ``raytracer/Element.h:6-41``, ``HitPoint`` at ``raytracer/Raytracer.h:47-80``)
-and heap-allocated vectors of pointers.  TPU-native design: every record
-becomes a struct-of-arrays pytree with a static capacity and a validity mask,
-so the whole render traces to fixed shapes and XLA can tile it onto the
-VPU/MXU.
+and heap-allocated vectors of pointers.  Here every record becomes a
+struct-of-arrays pytree with a static capacity and a validity mask, so the
+whole render traces to fixed shapes that XLA compiles into fused batched
+kernels.
 """
 
 from __future__ import annotations
 
-import flax.struct
 import jax.numpy as jnp
 
+from .pytree import pytree_dataclass
 from .vecmath import any_near_zero, mean_power
 
 
-@flax.struct.dataclass
+@pytree_dataclass
 class Materials:
     """Per-object material table (object id -> coefficients).
 
@@ -67,7 +67,7 @@ def eta_from_refrn(rn: jnp.ndarray, inside: jnp.ndarray) -> jnp.ndarray:
     return jnp.where(inside, safe, 1.0 / safe)
 
 
-@flax.struct.dataclass
+@pytree_dataclass
 class HitRecord:
     """Resolved nearest-hit data for a batch of rays.
 
@@ -86,7 +86,7 @@ class HitRecord:
     color: jnp.ndarray    # (R, 3) surface colour at hit
 
 
-@flax.struct.dataclass
+@pytree_dataclass
 class HitPoints:
     """SPPM camera-side measurement points, fixed capacity ``C``.
 
@@ -122,7 +122,7 @@ def make_hitpoints(capacity: int, init_r2: float, dtype=jnp.float32) -> HitPoint
     )
 
 
-@flax.struct.dataclass
+@pytree_dataclass
 class Deposits:
     """Photon deposit events of one photon round, fixed capacity ``D``.
 

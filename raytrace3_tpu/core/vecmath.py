@@ -1,9 +1,8 @@
 """Vector math core: pure, vmappable functions on (..., 3) arrays.
 
-TPU-native re-design of the reference's ``Vec3`` class (reference:
+Batched re-design of the reference's ``Vec3`` class (reference:
 ``raytracer/Vec3.h:28-155``).  Instead of a scalar 3-vector class we operate on
-batched ``(..., 3)`` jnp arrays so every op vectorises onto the VPU and fuses
-under jit.  All functions are branchless (``jnp.where`` selects) so they trace
+batched ``(..., 3)`` jnp arrays so every op vectorises and fuses under jit.  All functions are branchless (``jnp.where`` selects) so they trace
 once under XLA.
 
 Parity notes (reference file:line):

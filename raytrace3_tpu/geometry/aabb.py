@@ -3,7 +3,7 @@
 Reference: ``AABBbox`` (raytracer/Bezier.h:7-57) implements an approximate
 boolean entry test (per-axis candidate-t + in-box check of the other two
 coordinates).  The standard slab test below is exact, cheaper, and branchless
-— SURVEY.md C8 nominates it as the TPU-native replacement.
+— SURVEY.md C8 nominates it as the batched replacement.
 """
 
 from __future__ import annotations

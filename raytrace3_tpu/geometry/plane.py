@@ -7,15 +7,15 @@ primitives.
 
 from __future__ import annotations
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
+from ..core.pytree import pytree_dataclass
 from ..core.vecmath import M_EPS, MAX_DIST, dot, normalize
 from ..ops.onehot import pick_columns, take_rows
 
 
-@flax.struct.dataclass
+@pytree_dataclass
 class Planes:
     p0: jnp.ndarray       # (P, 3) a point on each plane (Obj.h:58)
     normal: jnp.ndarray   # (P, 3) unit normal, NOT flipped toward rays (Obj.h:59)

@@ -13,10 +13,10 @@ from __future__ import annotations
 
 from functools import partial
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
+from ..core.pytree import pytree_dataclass, static_field
 from ..core.types import HitRecord, Materials
 from ..core.vecmath import MAX_DIST, normalize
 from ..ops.onehot import pick_columns, take_rows
@@ -26,7 +26,7 @@ from .plane import Planes, intersect_planes, plane_uv
 from .sphere import Spheres, intersect_spheres, sphere_uv
 
 
-@flax.struct.dataclass
+@pytree_dataclass
 class Scene:
     planes: Planes
     spheres: Spheres
@@ -41,14 +41,14 @@ class Scene:
     #: Reference quirk #1 (Bezier.h:278): the teapot texture lookup passes
     #: (u=surface u, v=ray distance t) instead of (u, v).  On by default for
     #: parity; set False for the sane mapping.
-    bezier_uv_quirk: bool = flax.struct.field(pytree_node=False, default=True)
+    bezier_uv_quirk: bool = static_field(default=True)
     #: Fraction of rays gathered through the object-AABB compaction before
     #: the Newton solve (1.0 = dense, no compaction).
-    bezier_compact_frac: float = flax.struct.field(pytree_node=False, default=1.0)
+    bezier_compact_frac: float = static_field(default=1.0)
     #: Newton budget (reference: 10 iters x 50 random restarts, Bezier.h:6,115;
     #: we default 10 iters x 4x4 stratified restarts).
-    newton_iters: int = flax.struct.field(pytree_node=False, default=10)
-    newton_restarts: int = flax.struct.field(pytree_node=False, default=4)
+    newton_iters: int = static_field(default=10)
+    newton_restarts: int = static_field(default=4)
 
     @property
     def n_planes(self) -> int:

@@ -7,15 +7,15 @@ flow).
 
 from __future__ import annotations
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
+from ..core.pytree import pytree_dataclass
 from ..core.vecmath import M_EPS, MAX_DIST, dot, normalize
 from ..ops.onehot import take_rows
 
 
-@flax.struct.dataclass
+@pytree_dataclass
 class Spheres:
     center: jnp.ndarray  # (S, 3)
     radius: jnp.ndarray  # (S,)

@@ -1,12 +1,11 @@
 """Masked index compaction via one stable sort.
 
 Drop-in for ``jnp.nonzero(mask, size=cap, fill_value=fill)[0]`` on the hot
-path.  XLA lowers sized-nonzero to a cumsum + index SCATTER, which on TPU
-costs per index like a gather (~24 ms per million lanes; profiled at 1.14 ms
-per 131072-lane call inside the photon walk).  A stable ascending sort of
-``~mask`` puts the True lanes first in original order at ~1/100 the cost
-(scripts/perf_compact_micro.py: 141.6 ms nonzero vs 1.2 ms sort on 131072
-lanes standalone; identical outputs).
+path.  XLA lowers sized-nonzero to a cumsum + index SCATTER; a stable
+ascending sort of ``~mask`` puts the True lanes first in original order
+with no scatter at all, and was the faster of the two on the accelerator
+this renderer was first built for (identical outputs).  Not yet re-measured
+on the GPU.
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
-"""One-hot contractions replacing small-table gathers on TPU.
+"""One-hot contractions replacing small-table gathers.
 
-XLA lowers ``tbl[idx]`` to a gather whose cost is per-index (~tens of ns
-each on TPU — profiled at ~24 ms per million indices), regardless of how
-small the table is.  For the renderer's tiny tables (5 planes, 3 spheres,
-9 materials) a one-hot contraction is bandwidth-bound VPU work instead:
-build ``(R, K)`` one-hot masks and reduce — orders of magnitude faster at
-the photon-walk's R ~ 1e5 per segment.
+XLA lowers ``tbl[idx]`` to a gather whose cost is per index, regardless of
+how small the table is.  For the renderer's tiny tables (5 planes, 3
+spheres, 9 materials) a one-hot contraction is bandwidth-bound elementwise
+work instead: build ``(R, K)`` one-hot masks and reduce.  It was much the
+faster at the photon walk's R ~ 1e5 per segment on the accelerator this
+renderer was first built for; not yet re-measured on the GPU.
 
 Use ONLY for small K (≲ 64): the one-hot intermediate is (R, K).
 """
@@ -32,11 +32,11 @@ def take_rows(tbl: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
     k = tbl.shape[0]
     oh = onehot_f32(idx, k)                              # (R, K)
     flat = tbl.reshape(k, -1)                            # (K, M)
-    # precision=HIGHEST: the TPU's default-bf16 matmul ROUNDS THE TABLE
-    # VALUES (the one-hot side is exact either way) — scene coordinates
-    # like 81.6 lose ~0.4%, which put bounce origins ~half a unit off the
-    # surfaces and inflated every TPU render ~1.27x via spurious
-    # self-re-intersections (round-4 crossval root cause).
+    # precision=HIGHEST: a reduced-precision matmul (bf16, or TF32 on a
+    # GPU) ROUNDS THE TABLE VALUES (the one-hot side is exact either way) —
+    # scene coordinates like 81.6 lose ~0.4% in bf16, which put bounce
+    # origins ~half a unit off the surfaces and inflated renders ~1.27x via
+    # spurious self-re-intersections (found by the C++ crossval).
     mm = lambda a, b: jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
     if tbl.dtype == jnp.bool_:
         out = mm(oh, flat.astype(jnp.float32)) > 0.5

@@ -1,11 +1,10 @@
 """Closed-form batched 3x3 linear solve (Cramer / adjugate).
 
-TPU-native replacement for the reference's ``cv::Matx33d::inv()`` inside the
+Batched replacement for the reference's ``cv::Matx33d::inv()`` inside the
 Newton loop (raytracer/Bezier.h:126-130).  A general inverse is wasted work:
 the Newton step only needs ``J^-1 r`` for a J whose columns are three known
 3-vectors, so Cramer's rule with cross/dot products is the speed-of-light
-formulation — no pivoting, no divergence, pure VPU arithmetic, and it is what
-the Pallas kernel (ops/newton_pallas.py) inlines.
+formulation — no pivoting, no divergence, pure elementwise arithmetic.
 """
 
 from __future__ import annotations

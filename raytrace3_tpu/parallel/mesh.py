@@ -2,17 +2,17 @@
 
 Reference: the only parallelism is a 4-thread OpenMP loop over SPPM passes
 with a serial canvas merge (raytracer/Raytracer.h:442-458; SURVEY.md section
-2 "Parallelism strategies").  TPU-native axes (SURVEY.md maps them
+2 "Parallelism strategies").  The mesh axes (SURVEY.md maps them
 explicitly):
 
   * ``pass``   — independent jittered SPPM passes (the OpenMP loop's role):
-                 pure data parallelism, DCN-friendly across hosts.
-  * ``photon`` — photons and eye rays sharded WITHIN a pass over ICI;
-                 deposits are psum'd, hit points all-gathered.
+                 pure data parallelism, cheap across hosts.
+  * ``photon`` — photons and eye rays sharded WITHIN a pass; deposits are
+                 psum'd, hit points all-gathered.
 
 ``jax.distributed.initialize`` + the standard mesh utils handle multi-host;
-nothing here hand-writes communication — XLA collectives ride ICI/DCN from
-the sharding specs alone.
+nothing here hand-writes communication — XLA inserts the collectives (NCCL
+between GPUs) from the sharding specs alone.
 """
 
 from __future__ import annotations

@@ -2,15 +2,15 @@
 
 SURVEY.md section 2 parallel axis #3: "Hit-point sharding for large
 canvases: shard hit points, all-gather/permute photons past shards
-(ring-style exchange over ICI) — the renderer's analogue of ring attention;
+(ring-style exchange) — the renderer's analogue of ring attention;
 needed only at 1024x1024+ with splitting (hitpoints > pixels)."
 
 Memory layout vs parallel/shard.py: there the hit-point state is REPLICATED
 in each pass group (fine up to ~10^6 hit points); here each device owns only
 C/n hit points and the per-round DEPOSIT BATCH rotates around the ring via
 ``jax.lax.ppermute`` — n-1 hops overlap compute (the local deposit op) with
-ICI transfers exactly like ring attention overlaps KV block transfer with
-attention compute.  No psum of (C,)-sized tensors is needed at all: each
+device-to-device transfers exactly like ring attention overlaps KV block
+transfer with attention compute.  No psum of (C,)-sized tensors is needed at all: each
 shard's (d_nphot, d_tao) increments are complete after the full rotation.
 
 The tuned single-chip machinery all works hit-point-sharded (VERDICT round
@@ -65,7 +65,7 @@ def photon_rounds_ring(
       local_photons: photons traced per device per round.
       axis_name: the mesh axis the hit points are sharded over.
     Returns (updated LOCAL hit-point shard, emitted_per_light,
-    drop/overflow count).  ``emitted_per_light`` counts THIS DEVICE's
+    deposit drop count).  ``emitted_per_light`` counts THIS DEVICE's
     emissions (the caller psums over the ring axis for the image
     normaliser); it is the static rounds * local_photons without regen and
     the dynamic refill count with it, exactly like ``photon_rounds``.
@@ -73,15 +73,13 @@ def photon_rounds_ring(
     n = jax.lax.axis_size(axis_name)
     me = jax.lax.axis_index(axis_name)
     perm = [(i, (i + 1) % n) for i in range(n)]
-    returns_aux = getattr(deposit_fn, "returns_aux", False)
 
     # Backends with a prepare() hook (ops/deposit_pallas.py) amortise the
     # hit-point layout across all rounds x ring hops of the pass; with
-    # packed_call too, the whole pass runs in LAYOUT SPACE (same rules as
-    # photon_rounds: differentiable backends keep hp space).
+    # packed_call too, the whole pass runs in LAYOUT SPACE (as in
+    # photon_rounds).
     packed_mode = (hasattr(deposit_fn, "packed_call")
-                   and hasattr(deposit_fn, "prepare")
-                   and not getattr(deposit_fn, "differentiable", False))
+                   and hasattr(deposit_fn, "prepare"))
     raw_call = deposit_fn
     prep = None
     if hasattr(deposit_fn, "prepare"):
@@ -99,21 +97,19 @@ def photon_rounds_ring(
         state0 = (r2_pad, tao_pad, nphot_pad)
 
         def dep_hop(state, acc, dep):
-            cnt, fl, ovf = deposit_fn.packed_call(state[0], dep, prep)
-            a_cnt, a_fl, a_ovf = acc
-            return (a_cnt + cnt, a_fl + fl, a_ovf + ovf)
+            cnt, fl = deposit_fn.packed_call(state[0], dep, prep)
+            return (acc[0] + cnt, acc[1] + fl)
 
         def acc_init(state):
             r2_p = state[0]
-            return (jnp.zeros_like(r2_p), jnp.zeros((c_pad, 3), r2_p.dtype),
-                    jnp.zeros((), jnp.int32))
+            return (jnp.zeros_like(r2_p), jnp.zeros((c_pad, 3), r2_p.dtype))
 
         def fold_round(state, acc):
             r2_p, tao_p, nph_p = state
-            cnt, fl, ovf = acc
+            cnt, fl = acc
             d_tao = wgt_pad * fl / jnp.pi               # Raytracer.h:156
             return ppm_update_arrays(r2_p, tao_p, nph_p, cnt, d_tao,
-                                     update_mode), ovf
+                                     update_mode)
 
         def finish_state(state):
             r2_p, tao_p, nph_p = state
@@ -127,19 +123,16 @@ def photon_rounds_ring(
         state0 = hp_local
 
         def dep_hop(state, acc, dep):
-            out = raw_call(state, dep)
-            a_n, a_t, a_ovf = acc
-            ovf = out[2] if returns_aux else jnp.zeros((), jnp.int32)
-            return (a_n + out[0], a_t + out[1], a_ovf + ovf)
+            d_n, d_tao = raw_call(state, dep)
+            return (acc[0] + d_n, acc[1] + d_tao)
 
         def acc_init(state):
             return (jnp.zeros(state.capacity, state.pos.dtype),
-                    jnp.zeros((state.capacity, 3), state.pos.dtype),
-                    jnp.zeros((), jnp.int32))
+                    jnp.zeros((state.capacity, 3), state.pos.dtype))
 
         def fold_round(state, acc):
-            d_n, d_tao, ovf = acc
-            return ppm_update(state, d_n, d_tao, update_mode), ovf
+            d_n, d_tao = acc
+            return ppm_update(state, d_n, d_tao, update_mode)
 
         def finish_state(state):
             return state
@@ -184,9 +177,8 @@ def photon_rounds_ring(
                 debias_roulette=debias_roulette, newton_fn=newton_fn,
             )
             dep, dropped = compact(dep)
-            acc = ring_rotation(state, dep)
-            state, ovf = fold_round(state, acc)
-            return (state, pstate, emitted + e, drops + dropped + ovf), None
+            state = fold_round(state, ring_rotation(state, dep))
+            return (state, pstate, emitted + e, drops + dropped), None
 
         (state, _, emitted, drops), _ = jax.lax.scan(
             round_body,
@@ -206,9 +198,8 @@ def photon_rounds_ring(
                            debias_roulette=debias_roulette,
                            newton_fn=newton_fn)
         dep, dropped = compact(dep)
-        acc = ring_rotation(state, dep)
-        state, ovf = fold_round(state, acc)
-        return (state, drops + dropped + ovf), None
+        state = fold_round(state, ring_rotation(state, dep))
+        return (state, drops + dropped), None
 
     (state, drops), _ = jax.lax.scan(
         round_body, (state0, jnp.zeros((), jnp.int32)), keys

@@ -3,10 +3,10 @@
 Reference seam being replaced: ``SPPMRayTracer::render``'s 4-thread OpenMP
 pass loop + serial canvas merge (raytracer/Raytracer.h:425-458).
 
-TPU-native layout (SURVEY.md section 2, "Parallelism strategies"):
+Layout (SURVEY.md section 2, "Parallelism strategies"):
   * mesh axis ``pass``:   each pass-group renders an INDEPENDENT jittered
     SPPM pass (per-group camera jitter from a folded key) — the reference's
-    thread loop, now data-parallel across chips/hosts; the canvas merge is a
+    thread loop, now data-parallel across devices/hosts; the canvas merge is a
     mean over the pass axis.
   * mesh axis ``photon``: within a pass-group, eye rays AND photons are
     sharded; local hit-point shards are all-gathered after the eye pass, and
@@ -39,14 +39,28 @@ from ..utils.config import RenderConfig
 from .mesh import PASS_AXIS, PHOTON_AXIS, make_mesh
 
 
+def shard_eye_schedule(schedule: tuple, n_shards: int) -> tuple:
+    """The staged eye schedule for one of ``n_shards`` contiguous ray shards.
+
+    A schedule's fractions are tuned on the whole image, but contiguous row
+    shards split its surviving rays unevenly: the rows through the mirror
+    and glass objects keep their rays for many more segments.  Each shard
+    therefore keeps the whole image's stage width, ``frac * n_shards`` of its
+    own rays (at most all of them), and drops no ray that the one-device
+    pass keeps.
+    """
+    return tuple((seg, min(1.0, frac * n_shards)) for seg, frac in schedule)
+
+
 def make_sharded_pass_fn(scene: Scene, cfg: RenderConfig, base_pos, base_look,
                          mesh: Mesh, deposit_fn=None, newton_fn=None,
                          hp_sharded: bool = False):
     """Build ``key -> (image, stats)`` where each pass-group renders one
     jittered pass and the result is the mean image over the pass axis.
 
-    The FULL tuned single-chip configuration threads through (VERDICT
-    round 4 weak item 1): ``eye_compact_schedule`` (staged wavefront),
+    The FULL tuned single-chip configuration threads through:
+    ``eye_compact_schedule`` (staged wavefront, widened per ray shard by
+    :func:`shard_eye_schedule`),
     ``photon_regen`` (persistent lanes), ``deposit_compact_frac``,
     ``debias_roulette``, ``bezier_compact_frac_photon`` (photon-pass
     scene tuning), and deposit backends with ``prepare``/``packed_call``
@@ -56,7 +70,8 @@ def make_sharded_pass_fn(scene: Scene, cfg: RenderConfig, base_pos, base_look,
 
     ``stats`` carries the drop counters summed over the whole mesh
     (``dropped`` = eye-compaction clips, ``deposits_dropped`` = deposit
-    overflow): silently lost flux must be loud on the sharded path too.
+    compaction clips): silently lost flux must be loud on the sharded path
+    too.
 
     ``hp_sharded``: keep each device's hit-point shard LOCAL (no
     all-gather) and rotate the per-round deposit batches around the photon
@@ -81,6 +96,7 @@ def make_sharded_pass_fn(scene: Scene, cfg: RenderConfig, base_pos, base_look,
     if cfg.photons_per_round % n_photon:
         raise ValueError("photons_per_round not divisible by photon axis")
     local_photons = cfg.photons_per_round // n_photon
+    eye_schedule = shard_eye_schedule(cfg.eye_compact_schedule, n_photon)
     photon_scene = None
     if cfg.bezier_compact_frac_photon >= 0.0 and scene.has_bezier:
         photon_scene = scene.replace(
@@ -105,16 +121,17 @@ def make_sharded_pass_fn(scene: Scene, cfg: RenderConfig, base_pos, base_look,
         hp_local, eye_stats = eye_pass(
             scene, org_s, dir_s, local_capacity, cfg.max_depth, cfg.slots,
             cfg.init_r2, newton_fn=newton_fn, pixel_offset=fi * ray_shard,
-            compact_schedule=cfg.eye_compact_schedule,
+            compact_schedule=eye_schedule,
         )
         if hp_sharded:
             # --- hit points stay LOCAL; deposits ride the ring ---
             from .ring import photon_rounds_ring
 
-            kshard = jax.random.split(kp)[0]
+            # photon_rounds_ring folds kp by the shard index itself, so each
+            # device traces the same photons as in the replicated branch.
             hp, emitted, dep_drops = photon_rounds_ring(
                 photon_scene if photon_scene is not None else scene,
-                kshard, hp_local, cfg.rounds, local_photons,
+                kp, hp_local, cfg.rounds, local_photons,
                 PHOTON_AXIS, cfg.max_depth, cfg.update_mode, deposit_fn,
                 newton_fn,
                 deposit_compact_frac=cfg.deposit_compact_frac,
@@ -127,7 +144,7 @@ def make_sharded_pass_fn(scene: Scene, cfg: RenderConfig, base_pos, base_look,
             img = estimate_image(hp, R, total)
             img = jax.lax.psum(img, PHOTON_AXIS)
         else:
-            # Replicate hit points across the group (ICI all-gather).
+            # Replicate hit points across the group (all-gather).
             hp = jax.tree.map(
                 lambda x: jax.lax.all_gather(x, PHOTON_AXIS, axis=0,
                                              tiled=True),

@@ -8,9 +8,9 @@ is a small immutable pytree, cheap to jitter per SPPM pass.
 
 from __future__ import annotations
 
-import flax.struct
 import jax.numpy as jnp
 
+from ..core.pytree import pytree_dataclass, static_field
 from ..core.vecmath import cross, normalize
 
 #: Reference field of view (Camera.h:44): 50 degrees.
@@ -19,14 +19,14 @@ DEFAULT_FOV_DEG = 50.0
 DEFAULT_RES = 1024
 
 
-@flax.struct.dataclass
+@pytree_dataclass
 class Camera:
     pos: jnp.ndarray   # (3,)
     dir: jnp.ndarray   # (3,) forward, SCALED by 0.5/tan(fov/2) (Camera.h:45)
     du: jnp.ndarray    # (3,) unit right
     dv: jnp.ndarray    # (3,) unit up-ish
-    width: int = flax.struct.field(pytree_node=False, default=DEFAULT_RES)
-    height: int = flax.struct.field(pytree_node=False, default=DEFAULT_RES)
+    width: int = static_field(default=DEFAULT_RES)
+    height: int = static_field(default=DEFAULT_RES)
 
 
 def look_at(pos, look, width: int = DEFAULT_RES, height: int = DEFAULT_RES,

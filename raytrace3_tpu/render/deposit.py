@@ -6,18 +6,17 @@ deposit, single-threaded, with the neighbour filter
 ``hp->n . N > 1e-3 && |hp->pos - x|^2 <= hp->R2`` and the accumulation
 ``hp->tao += hp->wgt * flux / pi; hp->newN++`` (Raytracer.h:154-157).
 
-TPU-native replacements (SURVEY.md C17, BASELINE.json):
+Batched replacements (SURVEY.md C17, BASELINE.json):
 
 1. ``deposit_bruteforce`` — the ALL-PAIRS formulation.  The neighbour mask
-   is a distance matrix; distance needs |h|^2 + |d|^2 - 2 h.d, and the flux
-   accumulation is ``mask @ flux`` — i.e. TWO MATMULS, which the MXU eats at
-   near peak.  Chunked over deposits so nothing quadratic materialises in
-   HBM.  Exactly equal to the kd-tree result (it IS the brute-force oracle),
-   trivially differentiable, and the default for single-chip sizes.
+   is an elementwise distance test and the flux accumulation is
+   ``mask @ flux``, a thin matmul.  Chunked over deposits so nothing
+   quadratic is held in device memory at once.  Exactly equal to the
+   kd-tree result (it IS the brute-force oracle), trivially differentiable,
+   and the default for small canvases.
 
-2. ``deposit_grid`` (ops/grid.py) — uniform-grid binning for large scenes:
-   sort deposits by cell, gather 27 neighbour cells per hit point.  O(C * M)
-   instead of O(C * D); wins when C * D exceeds ~10^10.
+2. ``ops/deposit_pallas.py`` — the banded Triton kernel for the GPU: visits
+   only each hit-point tile's candidate deposits, exactly.
 
 The search radius is the global INIT_R2 = 2.0 like the reference
 (Raytracer.h:85,146 — quirk #6: the global radius never tracks the
@@ -38,19 +37,20 @@ from ..core.types import Deposits, HitPoints
 NORMAL_DOT_MIN = 1e-3
 
 #: Flux accumulation matmul: exact fp32 (the mask is 0/1 so only the flux
-#: values lose bits under the TPU's default-bf16 matmul; HIGHEST keeps them).
+#: values lose bits under a reduced-precision matmul — bf16, or TF32 on a
+#: GPU; HIGHEST keeps them).
 _PREC = jax.lax.Precision.HIGHEST
 
 
 def pair_d2_ndot(hp_pos, hp_n, dp, dn):
     """Exact pairwise |h - d|^2 and n_h . n_d, (C, J) by broadcast.
 
-    NOT the |h|^2 + |d|^2 - 2 h.d matmul identity: TPU matmuls default to
-    bfloat16 inputs, which against ~1e2-scale scene coordinates yields d^2
-    errors of TENS of units vs the r^2 = 2.0 threshold (and even an fp32
-    matmul cancels ~1e4-scale terms to resolve ~1 unit).  The broadcast
-    difference form is exact where it matters (small separations) and rides
-    the VPU; the pair test was never real MXU work anyway (K = 3).
+    NOT the |h|^2 + |d|^2 - 2 h.d matmul identity: reduced-precision
+    matmul inputs (bf16, TF32) against ~1e2-scale scene coordinates yield
+    d^2 errors of TENS of units vs the r^2 = 2.0 threshold (and even an
+    fp32 matmul cancels ~1e4-scale terms to resolve ~1 unit).  The broadcast
+    difference form is exact where it matters (small separations); the pair
+    test was never real matmul work anyway (K = 3).
     """
     d2 = (
         (hp_pos[:, 0, None] - dp[None, :, 0]) ** 2
@@ -122,9 +122,9 @@ def deposit_bruteforce(hp: HitPoints, dep: Deposits, chunk: int = 4096,
 
     # checkpoint: under reverse-mode AD (the smooth-kernel geometry-grad
     # path) the scan would otherwise SAVE every (C, chunk) pair matrix —
-    # n_chunks x rounds of ~75 MB blew HBM at 48^2; recomputing the chunk
-    # contribution in the backward is ~free (it is two broadcasts + a thin
-    # matmul) and drops the residuals to O(C).
+    # n_chunks x rounds of ~75 MB ran out of device memory at 48^2;
+    # recomputing the chunk contribution in the backward is ~free (it is
+    # two broadcasts + a thin matmul) and drops the residuals to O(C).
     @jax.checkpoint
     def body(carry, idx):
         cnt, fl = carry

@@ -5,11 +5,11 @@ passes, each running FOUR OpenMP threads with camera positions jittered by
 0.00015 * random unit vector, merging canvases serially, tone-mapping the
 running average, and saving a JPEG every pass.
 
-TPU-native: one pass = one pure jitted function ``key -> image`` (the
+Here one pass = one pure jitted function ``key -> image`` (the
 camera jitter, basis rebuild and ray generation all trace into the graph);
 the host loop just folds keys, accumulates on device, and handles
 checkpoint/preview I/O.  The OpenMP fan-out is replaced by the mesh
-pass-parallelism in ``parallel/shard.py`` — on one chip this loop plays the
+pass-parallelism in ``parallel/shard.py`` — on one device this loop plays the
 role of the reference's serial merge.
 """
 

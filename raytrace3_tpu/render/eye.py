@@ -6,7 +6,7 @@ FOLLOWS EVERY ACTIVE LOBE deterministically: a diffuse lobe stores a HitPoint
 (Raytracer.h:312-319) and reflective/refractive lobes recurse (320-336), so a
 single pixel may own many hit points, pushed into an unbounded vector.
 
-TPU-native wavefront redesign (SURVEY.md C16, hard part (a)):
+Wavefront redesign (SURVEY.md C16, hard part (a)):
   * ray state is a fixed ``(R, K)`` slot array (K = ``slots``); a bounce that
     needs BOTH a reflected and a refracted continuation allocates a free slot
     (stable-partition compaction); overflow is counted, not crashed;
@@ -66,7 +66,7 @@ def eye_stage_widths(n_rays: int, schedule: tuple,
     """
     segs_total = max_depth + 1
     bounds = [0] + [seg for seg, _ in schedule] + [segs_total]
-    # The 128-lane floor (one full VPU row) can exceed a SMALL ray batch
+    # The 128-lane floor can exceed a SMALL ray batch
     # (e.g. a per-shard ray slice under photon-axis sharding): clamp each
     # stage to the incoming width — a stage never widens the wavefront.
     widths = [n_rays]

@@ -4,7 +4,7 @@ Reference: ``Light::emit`` (raytracer/Light.h:8-13): one photon at a time,
 origin = light position, direction uniform on the sphere, flux = colour * 4pi.
 (``SpotLight`` adds nothing — it only shadows private fields, Light.h:19-26.)
 
-TPU-native: one key -> a whole ``(N, 3)`` batch of photon origins/dirs/fluxes,
+Batched: one key -> a whole ``(N, 3)`` batch of photon origins/dirs/fluxes,
 round-robin across the scene's lights exactly like the reference's
 per-light inner loop (Raytracer.h:226-233).
 """

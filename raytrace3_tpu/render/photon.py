@@ -8,7 +8,7 @@ reference's estimator quirk of NOT dividing by the branch probability
 (Obj.h:30-45; the de-biased variant is only commented out, Raytracer.h:
 167-176).
 
-TPU-native: the walk is a ``lax.scan`` over ``max_depth + 1`` segments with
+Batched: the walk is a ``lax.scan`` over ``max_depth + 1`` segments with
 the whole photon batch as state; deposits stream out as a fixed-shape
 ``(segments * N, ...)`` record set consumed by one deposit kernel per round —
 the kd-tree query disappears from the inner loop entirely.
@@ -30,7 +30,7 @@ from .eye import MAX_DEPTH
 
 def _material_lanes(scene: Scene):
     """Combined (N, 5) material table [diff_p, refl_p, refr_p, is_diff,
-    refrn] + a per-lane fetch via ONE one-hot contraction (TPU gathers cost
+    refrn] + a per-lane fetch via ONE one-hot contraction (gathers cost
     per index; this runs every walk segment)."""
     diff_p, refl_p, refr_p = scene.materials.powers()
     tbl = jnp.stack([

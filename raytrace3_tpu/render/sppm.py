@@ -84,8 +84,8 @@ def photon_rounds(
 
     ``psum_axis``: when running inside ``shard_map`` with photons sharded
     over a mesh axis, pass its name — each device traces its local photon
-    shard and the per-round (d_nphot, d_tao) increments are all-reduced over
-    ICI before the radius update, keeping hit-point state replicated
+    shard and the per-round (d_nphot, d_tao) increments are all-reduced
+    before the radius update, keeping hit-point state replicated
     (SURVEY.md section 2, photon-sharding axis).
 
     ``regen``: persistent photon lanes — dead lanes are refilled from the
@@ -103,28 +103,15 @@ def photon_rounds(
     # Backends that ALSO expose ``packed_call`` run the whole rounds loop in
     # LAYOUT SPACE: per-pass state (r2, tao, nphot, wgt) is scattered into
     # the bucket-aligned layout once, every round's deposit + PPM update is
-    # elementwise there, and the state unpacks once at pass end — deleting
-    # the per-round (C, 8) result gather and (C,) r2-refresh scatter, both
-    # per-index costs (docs/PERF.md: TPU scatter/gather cost per index).
-    # (differentiable backends keep the hp-space path: packed_call bypasses
-    # the custom-VJP wrapper that the gradient flows through)
+    # elementwise there, and the state unpacks once at pass end — no
+    # per-round result gather or r2-refresh scatter.
     packed_mode = (hasattr(deposit_fn, "packed_call")
-                   and hasattr(deposit_fn, "prepare")
-                   and not getattr(deposit_fn, "differentiable", False))
-    raw_call = deposit_fn
+                   and hasattr(deposit_fn, "prepare"))
+    dep_call = deposit_fn
     if hasattr(deposit_fn, "prepare"):
-        prep = deposit_fn.prepare(hp)
-        raw_call = partial(deposit_fn, prep=prep)
-    # Backends with ``returns_aux`` also report an overflow count (candidate
-    # deposits their bounded work list skipped) — folded into the drop stat.
-    if getattr(deposit_fn, "returns_aux", False):
-        def dep_call(hp_, dep_):
-            d_n, d_tao, ovf = raw_call(hp_, dep_)
-            return d_n, d_tao, ovf
-    else:
-        def dep_call(hp_, dep_):
-            d_n, d_tao = raw_call(hp_, dep_)
-            return d_n, d_tao, jnp.zeros((), jnp.int32)
+        with jax.named_scope("deposit"):
+            prep = deposit_fn.prepare(hp)
+        dep_call = partial(deposit_fn, prep=prep)
 
     # Opaque per-pass hit-point state for the rounds scan + its fold.
     if packed_mode:
@@ -139,12 +126,13 @@ def photon_rounds(
 
         def fold_state(state, dep):
             r2_p, tao_p, nph_p = state
-            cnt, fl, ovf = deposit_fn.packed_call(r2_p, dep, prep)
+            with jax.named_scope("deposit"):
+                cnt, fl = deposit_fn.packed_call(r2_p, dep, prep)
             d_tao = wgt_pad * fl / jnp.pi               # Raytracer.h:156
             if psum_axis is not None:
                 cnt, d_tao = jax.lax.psum((cnt, d_tao), psum_axis)
             return ppm_update_arrays(r2_p, tao_p, nph_p, cnt, d_tao,
-                                     update_mode), ovf
+                                     update_mode)
 
         def finish_state(state):
             r2_p, tao_p, nph_p = state
@@ -159,10 +147,11 @@ def photon_rounds(
         state0 = hp
 
         def fold_state(state, dep):
-            d_n, d_tao, ovf = dep_call(state, dep)
+            with jax.named_scope("deposit"):
+                d_n, d_tao = dep_call(state, dep)
             if psum_axis is not None:
                 d_n, d_tao = jax.lax.psum((d_n, d_tao), psum_axis)
-            return ppm_update(state, d_n, d_tao, update_mode), ovf
+            return ppm_update(state, d_n, d_tao, update_mode)
 
         def finish_state(state):
             return state
@@ -192,9 +181,8 @@ def photon_rounds(
                 debias_roulette=debias_roulette, newton_fn=newton_fn,
             )
             dep, dropped = compact(dep)
-            state, ovf = fold_state(state, dep)
-            return (state, pstate, emitted + e,
-                    drops + dropped + ovf), None
+            state = fold_state(state, dep)
+            return (state, pstate, emitted + e, drops + dropped), None
 
         L = scene.light_pos.shape[0]
         (state, _, emitted, drops), _ = jax.lax.scan(
@@ -217,8 +205,8 @@ def photon_rounds(
                            debias_roulette=debias_roulette,
                            newton_fn=newton_fn)
         dep, dropped = compact(dep)
-        state, ovf = fold_state(state, dep)
-        return (state, drops + dropped + ovf), None
+        state = fold_state(state, dep)
+        return (state, drops + dropped), None
 
     (state, drops), _ = jax.lax.scan(
         round_body, (state0, jnp.zeros((), jnp.int32)), keys
@@ -270,22 +258,24 @@ def render_pass(
 
     Returns (image (R, 3), stats dict).
     """
-    hp, stats = eye_pass(
-        scene, cam_org, cam_dir, hitpoint_capacity, max_depth, slots,
-        init_r2, newton_fn=newton_fn,
-        compact_schedule=eye_compact_schedule,
-    )
+    with jax.named_scope("eye_pass"):
+        hp, stats = eye_pass(
+            scene, cam_org, cam_dir, hitpoint_capacity, max_depth, slots,
+            init_r2, newton_fn=newton_fn,
+            compact_schedule=eye_compact_schedule,
+        )
     # The photon pass may use different static tuning (e.g. a much smaller
     # Bezier ray-compaction fraction: photons hit the teapot AABB on ~1% of
     # segments vs ~4% of eye rays).
-    hp, emitted, dep_drops = photon_rounds(
-        photon_scene if photon_scene is not None else scene,
-        key, hp, n_rounds, photons_per_round, max_depth,
-        update_mode, deposit_fn, newton_fn,
-        deposit_compact_frac=deposit_compact_frac,
-        debias_roulette=debias_roulette,
-        regen=photon_regen,
-    )
+    with jax.named_scope("photon_rounds"):
+        hp, emitted, dep_drops = photon_rounds(
+            photon_scene if photon_scene is not None else scene,
+            key, hp, n_rounds, photons_per_round, max_depth,
+            update_mode, deposit_fn, newton_fn,
+            deposit_compact_frac=deposit_compact_frac,
+            debias_roulette=debias_roulette,
+            regen=photon_regen,
+        )
     img = estimate_image(hp, cam_org.shape[0], emitted)
     stats = dict(stats)
     stats["photons_emitted"] = emitted

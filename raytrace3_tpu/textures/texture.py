@@ -1,11 +1,11 @@
 """Texture atlas: fixed-shape device array + bilinear wraparound sampling.
 
 Reference: ``Texture`` (raytracer/Element.h:43-75) loads one cv::Mat per
-texture and bilinearly samples it per hit, CPU-side.  TPU-native design: all
-textures are resampled to one common resolution and stacked into a single
-``(T, H, W, 3)`` atlas that lives in HBM as part of the scene pytree — so the
-per-ray sample is one batched gather, and the atlas itself is a learnable
-parameter (BASELINE.json: gradients w.r.t. texture maps).
+texture and bilinearly samples it per hit, CPU-side.  Here all textures are
+resampled to one common resolution and stacked into a single
+``(T, H, W, 3)`` atlas that lives in device memory as part of the scene
+pytree — so the per-ray sample is one batched gather, and the atlas itself
+is a learnable parameter (BASELINE.json: gradients w.r.t. texture maps).
 
 Procedural generators below stand in for the reference's asset JPEGs
 (wall/timg/planet/blue — ``blue.jpg`` is even missing from the reference
@@ -59,8 +59,8 @@ def pack_atlas_2x2(atlas: jnp.ndarray) -> jnp.ndarray:
     Texel (r, c) of the packed atlas holds [T(r,c), T(r,c+1), T(r+1,c),
     T(r+1,c+1)] with the reference wrap rule (r/c + 1 wrapping to 0,
     Element.h:66-69) — exactly ``jnp.roll`` by -1.  Lets bilinear sampling
-    fetch all four taps with ONE gather instead of four (TPU gathers cost
-    per index, not per byte).  Differentiable w.r.t. the atlas; tiny
+    fetch all four taps with ONE gather instead of four (gathers cost per
+    index, not per byte).  Differentiable w.r.t. the atlas; tiny
     (atlas-sized) so it amortises to nothing when hoisted out of the photon
     scan by XLA (the atlas is loop-invariant).
     """
@@ -148,8 +148,16 @@ def flat(res: int = 256, color=(0.2, 0.4, 0.9)) -> np.ndarray:
 
 
 def load_image(path: str, res: int = 256) -> np.ndarray:
-    """Load an image file into a (res, res, 3) float32 RGB array in [0, 1]."""
-    from PIL import Image
+    """Load an image file into a (res, res, 3) float32 RGB array in [0, 1].
+
+    Needs Pillow, which the render path does not: the built-in scenes use
+    procedural textures."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            "load_image needs Pillow (pip install pillow) to decode image "
+            "files; the procedural textures in this module do not") from e
 
     img = Image.open(path).convert("RGB").resize((res, res), Image.BILINEAR)
     return np.asarray(img, np.float32) / 255.0

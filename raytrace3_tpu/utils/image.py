@@ -7,6 +7,9 @@ flip so outputs are directly comparable.
 
 from __future__ import annotations
 
+import struct
+import zlib
+
 import numpy as np
 
 
@@ -17,14 +20,33 @@ def to_uint8(img: np.ndarray) -> np.ndarray:
     return np.clip(np.floor(v * 255.0 + 0.5), 0, 255).astype(np.uint8)
 
 
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def encode_png(arr: np.ndarray) -> bytes:
+    """8-bit RGB PNG bytes of an (H, W, 3) uint8 array, rows top to bottom."""
+    arr = np.ascontiguousarray(arr, np.uint8)
+    h, w, c = arr.shape
+    if c != 3:
+        raise ValueError(f"expected an (H, W, 3) image, got {arr.shape}")
+    # filter type 0 (None) in front of every scanline
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, w * 3)],
+                         axis=1)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)   # 8-bit truecolour
+    return (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", ihdr)
+            + _png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _png_chunk(b"IEND", b""))
+
+
 def save_png(path: str, img: np.ndarray, tonemapped: bool = False) -> None:
     """Write (H, W, 3) image to PNG with the reference's vertical flip."""
-    from PIL import Image
-
     arr = np.asarray(img)
     if not tonemapped:
         arr = to_uint8(arr)
-    Image.fromarray(arr[::-1]).save(path)
+    with open(path, "wb") as f:
+        f.write(encode_png(arr[::-1]))
 
 
 def mse(a: np.ndarray, b: np.ndarray) -> float:

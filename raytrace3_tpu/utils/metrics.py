@@ -2,7 +2,7 @@
 
 Reference: raw cout/cerr progress meters (Raytracer.h:107,223-224, SURVEY.md
 section 5).  Here: a per-pass metric dict (photons/s, Mrays/s, hit points,
-mean r2) and an append-only JSONL sink, TPU-profiler-friendly.
+mean r2) and an append-only JSONL sink.
 """
 
 from __future__ import annotations

@@ -52,22 +52,21 @@ def main() -> int:
 
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
-    cache_dir = os.path.join(REPO, ".jax_cache")
-    os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 10)
+    from raytrace3_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import jax.numpy as jnp
     import numpy as np
     import optax
 
+    from raytrace3_tpu.backends import select_backends
     from raytrace3_tpu.diff.train import extract_params, make_render_fn
     from raytrace3_tpu.geometry.bezier import bernstein
     from raytrace3_tpu.render.deposit import deposit_bruteforce_epa
     from raytrace3_tpu.render.driver import build_scene
     from raytrace3_tpu.utils.config import RenderConfig
 
-    on_tpu = jax.default_backend() == "tpu"
     rng = np.random.default_rng(args.seed)
 
     base_cfg = RenderConfig(
@@ -80,12 +79,7 @@ def main() -> int:
         light_pos=jnp.asarray([[10.0, 18.0, 108.0]], jnp.float32))
     camera_pose = ((8.0, 8.0, 128.0), (16.0, 6.6, 116.0))
 
-    newton_fn = None
-    if on_tpu:
-        from raytrace3_tpu.ops.newton_pallas import make_newton_pallas
-
-        newton_fn = make_newton_pallas(iters=base_cfg.newton_iters,
-                                       restarts=8)
+    _, newton_fn = select_backends(base_cfg, scene)
 
     true_params = extract_params(scene)
     key = jax.random.key(args.seed + 1)
@@ -158,13 +152,14 @@ def main() -> int:
         "stages_init_r2": stages,
         "steps_per_stage": args.steps_per_stage,
         "sigma": args.sigma, "lr": args.lr,
-        "backend": jax.default_backend(),
+        "device": {"platform": jax.devices()[0].platform,
+                   "kind": jax.devices()[0].device_kind},
         "initial_param_err": round(p0, 5),
         "final_param_err": round(pf, 5),
         "initial_surface_err": round(s0, 5),
         "final_surface_err": round(sf, 5),
         "surface_err_reduction": round(s0 / max(sf, 1e-9), 2),
-        "seconds": round(dt, 1),
+        "seconds": dt,
         "curve": [[r2, i, round(l, 8), round(pe, 6), round(se, 6)]
                   for r2, i, l, pe, se in curves],
         "pass": bool(sf < 0.25 * s0),

@@ -5,7 +5,7 @@ Exercises the real multi-host bootstrap (``parallel.mesh.multihost_init`` ->
 ``jax.distributed.initialize``) plus the renderer's sharded train step over
 a GLOBAL mesh whose photon axis spans processes — the collectives (hit-point
 all_gather, deposit psum, gradient all-reduce) ride the cross-process
-backend (gloo on CPU; ICI/DCN on real TPU pods with zero code changes).
+backend (gloo on CPU; NCCL between GPU hosts with zero code changes).
 
 The reference's only parallel seam is a single-process OpenMP loop
 (raytracer/Raytracer.h:442-458); this is its multi-host replacement,

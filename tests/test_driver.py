@@ -44,12 +44,14 @@ def test_seed_changes_image():
 
 def test_presets_exist():
     for name in ["cornell128", "specular256", "bezier256", "teapot512",
-                 "sharded10m"]:
+                 "sharded10m", "bench512", "reference1024"]:
         cfg = get_config(name)
         assert cfg.n_pixels > 0
 
 
 def test_cli_smoke(tmp_path, monkeypatch):
+    # keep the persistent compile cache out of the checkout
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "cache"))
     out = str(tmp_path / "o.png")
     from raytrace3_tpu.cli import main
 
@@ -60,9 +62,12 @@ def test_cli_smoke(tmp_path, monkeypatch):
     ])
     assert rc == 0
     assert os.path.exists(out)
-    from PIL import Image
+    import struct
 
-    assert Image.open(out).size == (16, 16)
+    with open(out, "rb") as f:
+        head = f.read(24)
+    assert head[:8] == b"\x89PNG\r\n\x1a\n" and head[12:16] == b"IHDR"
+    assert struct.unpack(">II", head[16:24]) == (16, 16)
 
 
 def test_two_light_scene_renders():

@@ -214,15 +214,15 @@ class TestCamera:
 
 
 def test_hot_contractions_are_highest_precision():
-    """Regression guard for the round-4 TPU brightness bug: the TPU's
-    default-bf16 matmul precision rounded the plane-intersection t values
-    (~150 +- 0.6) and one-hot-fetched table values, putting bounce origins
-    ~half a unit off every surface — spurious self-re-intersections
-    inflated every TPU render ~1.27x (found by crossval against the C++
-    oracle and a numpy reference port; CPU tests can never see it because
-    the CPU backend is always f32).  Every geometry/table contraction must
-    carry an explicit HIGHEST precision, which this test checks in the
-    traced jaxpr (the only way to cover a TPU-only numeric on CPU)."""
+    """Regression guard for a reduced-precision brightness bug: a bf16
+    (or TF32) default matmul precision rounds the plane-intersection t
+    values (~150 +- 0.6) and one-hot-fetched table values, putting bounce
+    origins ~half a unit off every surface — spurious self-re-intersections
+    inflated renders ~1.27x (found by crossval against the C++ oracle and a
+    numpy reference port; CPU tests can never see it because the CPU
+    backend is always f32).  Every geometry/table contraction must carry an
+    explicit HIGHEST precision, which this test checks in the traced jaxpr
+    (the only way to cover an accelerator-only numeric on CPU)."""
     import jax
     import jax.numpy as jnp
 

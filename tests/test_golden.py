@@ -5,8 +5,8 @@
    diffuse Cornell config; our vectorised renderer must agree statistically
    (both are Monte Carlo estimators of the same integral with the same
    estimator quirks).
-2. Deposit backends (bruteforce matmul vs grid hash) must produce the SAME
-   image bit-for-bit inside a full render pass.
+2. Deposit backends (bruteforce oracle vs the banded Triton kernel) must
+   produce the same image inside a full render pass.
 3. A fixed-key golden hash guards against silent estimator drift.
 """
 
@@ -17,7 +17,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raytrace3_tpu.ops.grid import make_grid_deposit
 from raytrace3_tpu.render.camera import emit_rays, look_at
 from raytrace3_tpu.render.deposit import deposit_bruteforce
 from raytrace3_tpu.render.driver import build_scene
@@ -159,7 +158,12 @@ def test_matches_numpy_reference_port(key):
     assert rel.mean() < 0.2, (rel.mean(), rel.max())
 
 
-def test_grid_and_bruteforce_render_identically(key):
+def test_banded_and_bruteforce_render_identically(key):
+    """The banded Triton deposit (Pallas interpreter) inside a full render
+    pass, including its layout-space rounds, against the bruteforce
+    oracle."""
+    from raytrace3_tpu.ops.deposit_pallas import BandedDeposit
+
     scene = build_scene(CFG)
     cam = look_at(jnp.asarray([50.0, 35.0, 230.0], jnp.float32),
                   jnp.asarray([50.0, 35.042612, 229.0], jnp.float32),
@@ -174,7 +178,8 @@ def test_grid_and_bruteforce_render_identically(key):
         return np.asarray(img)
 
     a = run(deposit_bruteforce)
-    b = run(make_grid_deposit(max_per_cell=512))
+    b = run(BandedDeposit(tile=64, chunk=64, x_lo=-4.0, x_hi=104.0,
+                          interpret=True))
     np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-7)
 
 

@@ -1,5 +1,8 @@
-"""Pallas Newton-kernel tests (interpreter mode on CPU; the same kernel
-compiles for TPU via Mosaic — exercised by bench.py on hardware)."""
+"""Newton winner-solver tests: the 8-start stratified jnp solver the render
+path uses (``backends.select_backends``), against analytic roots and a
+64-start oracle."""
+
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -9,22 +12,19 @@ import pytest
 from raytrace3_tpu.geometry.bezier import (
     BezierObject,
     intersect_bezier,
+    restart_dims,
+    restart_grid,
     solve_winner,
     winner_root,
 )
-from raytrace3_tpu.ops.newton_pallas import make_newton_pallas
 from raytrace3_tpu.scenes import _teapot_ctrl
 
 
 @pytest.fixture(scope="module")
 def solver():
-    # restarts=16 matches the jnp path's 4x4 stratified start grid
-    # (geometry/bezier.py DEFAULT_RESTART_GRID=4), which is what makes the
-    # "identical restart grid -> identical decisions" equality assertions
-    # meaningful.  The LIBRARY default is 8 (2x4 grid) — certified against
-    # a 64-restart oracle in docs/NEWTON_RESTARTS.json, where the ~1%
-    # different-valid-root picks vs the 16-grid are measured and accepted.
-    return make_newton_pallas(interpret=True, tile_r=8, restarts=16)
+    # 8 starts (2 x 4 grid): certified against a 64-start oracle in
+    # docs/NEWTON_RESTARTS.json (~1% of rays pick a different valid root).
+    return jax.jit(partial(solve_winner, restarts=8))
 
 
 def _flat_patch():
@@ -48,6 +48,8 @@ def test_flat_patch_analytic(solver):
 
 
 def test_matches_jnp_winner_on_teapot(solver):
+    """8 starts against a 64-start oracle on rays aimed at the teapot: no
+    oracle hit is missed, and almost every hit finds the oracle's root."""
     ctrl = _teapot_ctrl()
     rng = np.random.default_rng(1)
     center = np.asarray(ctrl.reshape(-1, 3)).mean(0)
@@ -57,33 +59,34 @@ def test_matches_jnp_winner_on_teapot(solver):
     d /= np.linalg.norm(d, axis=1, keepdims=True)
 
     tp, up, vp, pp, hp = solver(jnp.asarray(org), jnp.asarray(d), ctrl)
-    tj, uj, vj, pj, hj = solve_winner(jnp.asarray(org), jnp.asarray(d), ctrl)
+    tj, uj, vj, pj, hj = solve_winner(jnp.asarray(org), jnp.asarray(d), ctrl,
+                                      restarts=64)
     hp, hj = np.asarray(hp), np.asarray(hj)
-    # identical restart grid + iteration count -> identical decisions
-    assert (hp == hj).mean() == 1.0
+    assert not (hj & ~hp).any()          # no oracle hit missed
     both = hp & hj
     assert both.sum() > 5
-    np.testing.assert_allclose(np.asarray(tp)[both], np.asarray(tj)[both],
-                               atol=1e-3)
+    tdiff = np.abs(np.asarray(tp) - np.asarray(tj))[both] / np.asarray(
+        tj)[both]
+    assert (tdiff > 1e-3).mean() <= 0.05, tdiff
 
 
-def test_patch_padding_to_group(solver):
-    """B=3 patches pad to one 8-patch group; padded lanes never win."""
-    ctrl = jnp.concatenate([
-        _flat_patch(),
-        _flat_patch() + jnp.asarray([0.0, 0.0, 1.0]),
-        _flat_patch() + jnp.asarray([0.0, 0.0, 2.0]),
-    ])
-    org = jnp.asarray([[0.5, 0.5, 0.0]], jnp.float32)
-    dir = jnp.asarray([[0.0, 0.0, 1.0]], jnp.float32)
-    t, u, v, pid, hit = solver(org, dir, ctrl)
-    assert bool(hit[0])
-    np.testing.assert_allclose(float(t[0]), 2.0, atol=1e-3)  # nearest patch
-    assert int(pid[0]) == 0
+@pytest.mark.parametrize("n", [1, 2, 4, 8, 16])
+def test_restart_grid_layout(n):
+    """``n`` starts form a gu x gv grid of cell centres, gu the largest
+    divisor of n not above sqrt(n), u-major (u0 = cell of the first axis)."""
+    gu, gv = restart_dims(n)
+    assert gu * gv == n and gu <= gv
+    assert gu == max(k for k in range(1, int(n ** 0.5) + 1) if n % k == 0)
+    got = np.asarray(restart_grid(n))
+    assert got.shape == (n, 2)
+    for i in range(gu):
+        for j in range(gv):
+            np.testing.assert_allclose(
+                got[i * gv + j], [(i + 0.5) / gu, (j + 0.5) / gv], rtol=1e-6)
 
 
 def test_winner_root_ift_gradient_matches_unrolled(solver):
-    """IFT custom_vjp gradient (through the Pallas forward) agrees with
+    """IFT custom_vjp gradient (through the solver's forward) agrees with
     differentiating the unrolled jnp Newton iteration."""
     ctrl = _flat_patch()
     org = jnp.asarray([[0.4, 0.6, 0.0]], jnp.float32)
@@ -106,8 +109,8 @@ def test_winner_root_ift_gradient_matches_unrolled(solver):
 
 
 def test_intersect_bezier_with_pallas_backend(solver):
-    """The scene-level entry point accepts the Pallas solver and agrees with
-    the jnp backend."""
+    """The scene-level entry point accepts a ``newton_fn`` solver and agrees
+    with its default solver."""
     obj = BezierObject(ctrl=_teapot_ctrl())
     rng = np.random.default_rng(3)
     center = np.asarray(obj.ctrl.reshape(-1, 3)).mean(0)

@@ -194,16 +194,18 @@ def test_render_sharded_hp_sharded_ring():
 
 
 def test_sharded_tuned_pass_axis_equals_single():
-    """VERDICT round 4 weak items 1-2: the sharded renderer runs the TUNED
-    single-chip configuration (staged eye wavefront + persistent-lane regen
-    + packed layout-space rounds) with the flagship Pallas kernels
-    (tile-loop deposit + Pallas Newton, interpret mode) INSIDE shard_map —
-    and on a pass-axis-only mesh it must equal the mean of the equivalent
-    single-device passes exactly (same key schedule, same kernels)."""
+    """The sharded renderer runs the TUNED single-device configuration
+    (staged eye wavefront + persistent-lane regen + packed layout-space
+    rounds) with the banded Triton deposit (interpret mode) and an explicit
+    Newton solver INSIDE shard_map — and on a pass-axis-only mesh it must
+    equal the mean of the equivalent single-device passes exactly (same key
+    schedule, same kernels)."""
+    from functools import partial
+
     from raytrace3_tpu.core.sampling import uniform_sphere
-    from raytrace3_tpu.ops.deposit_pallas import (PallasDepositTile,
+    from raytrace3_tpu.geometry.bezier import solve_winner
+    from raytrace3_tpu.ops.deposit_pallas import (BandedDeposit,
                                                   world_bounds_from_scene)
-    from raytrace3_tpu.ops.newton_pallas import make_newton_pallas
     from raytrace3_tpu.render.camera import emit_rays, look_at
     from raytrace3_tpu.render.driver import build_scene
     from raytrace3_tpu.render.sppm import render_pass
@@ -219,13 +221,9 @@ def test_sharded_tuned_pass_axis_equals_single():
     base = np.array([50.0, 35.0, 230.0])
     look = base + np.array([0.0, 0.042612, -1.0])
     bounds = world_bounds_from_scene(scene, extra_points=[base])
-    # 1-D banding like the bench config (2-D bucket padding is pathological
-    # at toy shapes: thousands of interpret-mode grid steps).
     b1 = {k: bounds[k] for k in ("x_lo", "x_hi", "y_lo", "y_hi")}
-    deposit_fn = PallasDepositTile(tile=128, chunk=256, interpret=True,
-                                   bucket2d=False, **b1)
-    newton_fn = make_newton_pallas(iters=cfg.newton_iters, restarts=2,
-                                   interpret=True)
+    deposit_fn = BandedDeposit(tile=128, chunk=256, interpret=True, **b1)
+    newton_fn = partial(solve_winner, iters=cfg.newton_iters, restarts=2)
 
     mesh = make_mesh(2, 1, devices=jax.devices()[:2])
     fn = make_sharded_pass_fn(scene, cfg, base, look, mesh,
@@ -267,11 +265,13 @@ def test_sharded_tuned_pass_axis_equals_single():
 
 
 def test_sharded_tuned_photon_axis_regen_consistency():
-    """Photon-axis sharding at the tuned config (regen + staged eye): the
-    1x8 mesh must match a single-device emulation that traces the same 8
-    per-shard regen photon streams and sums their deposits before each
-    radius update — i.e. the psum is the ONLY difference."""
+    """Photon-axis sharding at the tuned config (regen + staged eye + the
+    banded deposit's layout-space rounds): the 1x8 mesh must match a
+    single-device emulation that traces the same 8 per-shard regen photon
+    streams and sums their bruteforce deposits before each radius update —
+    i.e. the psum is the ONLY difference."""
     from raytrace3_tpu.core.sampling import uniform_sphere
+    from raytrace3_tpu.ops.deposit_pallas import BandedDeposit
     from raytrace3_tpu.render.camera import emit_rays, look_at
     from raytrace3_tpu.render.deposit import deposit_bruteforce
     from raytrace3_tpu.render.driver import build_scene
@@ -285,7 +285,9 @@ def test_sharded_tuned_photon_axis_regen_consistency():
     mesh = make_mesh(1, 8)
     base = np.array([50.0, 35.0, 230.0])
     look = base + np.array([0.0, 0.042612, -1.0])
-    fn = make_sharded_pass_fn(scene, cfg, base, look, mesh)
+    depo = BandedDeposit(tile=128, chunk=256, interpret=True, x_lo=-4.0,
+                         x_hi=104.0)
+    fn = make_sharded_pass_fn(scene, cfg, base, look, mesh, deposit_fn=depo)
     key = jax.random.key(11)
     sharded, stats = fn(key)
     sharded = np.asarray(sharded)
@@ -333,3 +335,58 @@ def test_sharded_tuned_photon_axis_regen_consistency():
         estimate_image(hp, cfg.n_pixels, emitted_total)
     ).reshape(cfg.height, cfg.width, 3)
     np.testing.assert_allclose(sharded, ref, rtol=2e-4, atol=1e-5)
+
+
+def test_shard_eye_schedule_widens_fractions():
+    from raytrace3_tpu.parallel.shard import shard_eye_schedule
+
+    sched = ((1, 0.25), (4, 0.04), (6, 0.02))
+    assert shard_eye_schedule(sched, 1) == sched
+    assert shard_eye_schedule(sched, 4) == ((1, 1.0), (4, 0.16), (6, 0.08))
+    assert shard_eye_schedule((), 8) == ()
+
+
+def test_photon_mesh_keeps_the_staged_eye_schedule_drop_free():
+    """On a (1, 4) photon mesh the rows through the mirror and glass objects
+    keep most of the surviving eye rays.  A schedule that is drop-free on
+    one device overflows those shards at its own fractions; the sharded
+    pass widens it per shard and drops nothing."""
+    from functools import partial
+
+    from raytrace3_tpu.geometry.bezier import solve_winner
+    from raytrace3_tpu.render.camera import emit_rays, look_at
+    from raytrace3_tpu.render.driver import build_scene
+    from raytrace3_tpu.render.eye import eye_pass
+
+    sched = ((1, 0.25), (2, 0.1))
+    cfg = RenderConfig(
+        scene="full", width=64, height=64, passes=1, rounds=1,
+        photons_per_round=256, max_depth=6, atlas_res=8,
+        bezier_compact_frac=1.0, newton_restarts=2, newton_iters=4,
+        eye_compact_schedule=sched)
+    scene = build_scene(cfg)
+    newton_fn = partial(solve_winner, iters=4, restarts=2)
+    base = np.array([50.0, 35.0, 230.0])
+    look = base + np.array([0.0, 0.042612, -1.0])
+    org, dirs = emit_rays(look_at(jnp.asarray(base, jnp.float32),
+                                  jnp.asarray(look, jnp.float32), 64, 64))
+
+    @partial(jax.jit, static_argnums=2)
+    def eye_drops(o, d, schedule):
+        return eye_pass(scene, o, d, 2 * o.shape[0], cfg.max_depth,
+                        newton_fn=newton_fn,
+                        compact_schedule=schedule)[1]["dropped"]
+
+    assert int(eye_drops(org, dirs, sched)) == 0          # one device
+    rs = cfg.n_pixels // 4
+    raw = [int(eye_drops(org[i * rs:(i + 1) * rs], dirs[i * rs:(i + 1) * rs],
+                         sched)) for i in range(4)]
+    assert sum(raw) > 0, raw      # the unwidened schedule overflows a shard
+
+    mesh = make_mesh(1, 4, devices=jax.devices()[:4])
+    fn = make_sharded_pass_fn(scene, cfg, base, look, mesh,
+                              newton_fn=newton_fn)
+    img, stats = fn(jax.random.key(0))
+    assert int(stats["dropped"]) == 0
+    assert int(stats["deposits_dropped"]) == 0
+    assert np.isfinite(np.asarray(img)).all() and float(img.max()) > 0

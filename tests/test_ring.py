@@ -89,12 +89,12 @@ def test_ring_matches_replicated(key):
 
 
 def test_ring_regen_packed_matches_emulation(key):
-    """VERDICT round 4 item 7: the ring supports the TUNED machinery —
-    persistent-lane regen and layout-space rounds (prepare + packed_call
-    backend) — and still equals the flat emulation: per round, every
-    shard's regen deposits accumulate into each local hp shard (one full
-    rotation) before a single PPM update."""
-    from raytrace3_tpu.ops.deposit_pallas import PallasDepositTile
+    """The ring supports the TUNED machinery — persistent-lane regen and
+    layout-space rounds (the banded deposit's prepare + packed_call) — and
+    still equals the flat emulation: per round, every shard's regen
+    deposits accumulate into each local hp shard (one full rotation) before
+    a single PPM update."""
+    from raytrace3_tpu.ops.deposit_pallas import BandedDeposit
     from raytrace3_tpu.render.deposit import deposit_bruteforce
     from raytrace3_tpu.render.photon import (photon_trace_regen,
                                              regen_state_init)
@@ -111,8 +111,8 @@ def test_ring_regen_packed_matches_emulation(key):
     ray_shard = R // n
     local_cap = CFG.hitpoint_capacity // n
     local_photons = CFG.photons_per_round // n
-    depo = PallasDepositTile(tile=128, chunk=256, bucket2d=False,
-                             interpret=True, x_lo=-4.0, x_hi=104.0)
+    depo = BandedDeposit(tile=128, chunk=256, interpret=True, x_lo=-4.0,
+                         x_hi=104.0)
 
     def ring_body(org_s, dir_s):
         fi = jax.lax.axis_index(PHOTON_AXIS)
